@@ -1,7 +1,7 @@
-# Sphinx configuration for ska-pst-dsp-tpu.
+# Sphinx configuration for ska-pst-dsp.
 # Build (where sphinx is available):  sphinx-build -b html docs/src docs/html
-project = "ska-pst-dsp-tpu"
-author = "ska-pst-dsp-tpu developers"
+project = "ska-pst-dsp"
+author = "ska-pst-dsp developers"
 release = "0.2"
 
 extensions = [

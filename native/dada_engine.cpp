@@ -1,7 +1,7 @@
 // Native DADA I/O engine.
 //
 // The host-side hot path of the framework: DADA files store TFP-ordered
-// interleaved re/im samples (int8/int16/float32/float64); the TPU compute
+// interleaved re/im samples (int8/int16/float32/float64); the device compute
 // path wants split-complex float32 planes in PFT order. This engine does
 // the mmap'd read + dtype conversion + corner turn (and the reverse for
 // writes, including int8/int16 requantization) with a thread pool — the
@@ -9,7 +9,7 @@
 // package (read_dada_file.m, write_dada_data.m:28-56,
 // reshape_dada_data.m:16-27, reshape_low_cbf_data.m:24-56).
 //
-// Exposed as a plain C ABI consumed via ctypes (ska_pst_dsp_tpu.io.native).
+// Exposed as a plain C ABI consumed via ctypes (ska_pst_dsp.io.native).
 
 #include <algorithm>
 #include <functional>

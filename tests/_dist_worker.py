@@ -21,7 +21,6 @@ os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "")
     + " --xla_force_host_platform_device_count=4"
 )
-os.environ.setdefault("SKA_PST_FFT_PRECISION", "highest")
 
 import numpy as np  # noqa: E402
 
@@ -36,11 +35,11 @@ def main() -> int:
 
     from jax.sharding import Mesh
 
-    from ska_pst_dsp_tpu.io import dada
-    from ska_pst_dsp_tpu.ops import polyphase_analysis, polyphase_synthesis
-    from ska_pst_dsp_tpu.parallel import distributed
-    from ska_pst_dsp_tpu.utils.config import load_config
-    from ska_pst_dsp_tpu.utils.rational import Rational
+    from ska_pst_dsp.io import dada
+    from ska_pst_dsp.ops import polyphase_analysis, polyphase_synthesis
+    from ska_pst_dsp.parallel import distributed
+    from ska_pst_dsp.utils.config import load_config
+    from ska_pst_dsp.utils.rational import Rational
 
     multi = distributed.initialize(
         f"localhost:{port}", int(nproc_s), int(pid_s)

@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from ska_pst_dsp_tpu import oracle
-from ska_pst_dsp_tpu.ops import (
+from ska_pst_dsp import oracle
+from ska_pst_dsp.ops import (
     polyphase_analysis,
     polyphase_analysis_padded,
     polyphase_analysis_lowcbf,
 )
-from ska_pst_dsp_tpu.utils.rational import Rational
+from ska_pst_dsp.utils.rational import Rational
 
 
 def _noise(n_pol, n_dat, seed=0, dtype=np.complex64):
@@ -144,3 +144,71 @@ class TestLowCBF:
         x = _noise(2, 3072 + 192 * 10, seed=11)
         out = np.asarray(polyphase_analysis_lowcbf(x, taps, first_call=False))
         assert out.shape == (2, 216, 10)
+
+
+class TestProductionWidthsVsOracle:
+    """The plain analysis path against the fp64 oracle at the production
+    channel counts: SKA-Low (256 ch, OS 4/3, 3073 taps), and the padded
+    fold at 512 ch OS 4/3 and 1024 ch OS 8/7 (the mid structure: step
+    3584/4096 = 7/8 of the block, 25+ phases)."""
+
+    @pytest.mark.parametrize("n_pol, tuple_api", [
+        (2, False), (1, False), (3, True),
+    ], ids=["two_pol", "odd_pol", "odd_pol_tuple_api"])
+    def test_low(self, n_pol, tuple_api):
+        from ska_pst_dsp.design import fir
+
+        os_f = Rational(4, 3)
+        filt = fir.design_pfb_fir_filter(256, os_f, 12)
+        x = _noise(n_pol, 60000, seed=n_pol)
+        ref = oracle.polyphase_analysis(
+            x.astype(np.complex128), filt, 256, os_f
+        )
+        if tuple_api:
+            rr, ri = polyphase_analysis(
+                (np.ascontiguousarray(x.real[:, 0]),
+                 np.ascontiguousarray(x.imag[:, 0])), filt, 256, os_f,
+            )
+            out = np.asarray(rr) + 1j * np.asarray(ri)
+        else:
+            out = polyphase_analysis(x, filt, 256, os_f)
+        _check(out, ref)
+
+    @pytest.mark.parametrize("block, os, n_pol", [
+        (512, "4/3", 2), (512, "4/3", 3), (1024, "8/7", 2),
+    ], ids=["512_os4_3", "512_os4_3_odd_pol", "1024_os8_7"])
+    def test_padded(self, block, os, n_pol):
+        from ska_pst_dsp.design import fir
+
+        os_f = Rational.from_str(os)
+        filt = np.asarray(fir.design_pfb_fir_filter(block, os_f, 4))
+        x = _noise(n_pol, 60 * block, seed=block + n_pol)
+        ref = oracle.polyphase_analysis_padded(
+            x.astype(np.complex128), filt, block, os_f
+        )
+        out = polyphase_analysis_padded(x, filt, block, os_f)
+        _check(out, ref)
+
+    @pytest.mark.parametrize("block, os, k1", [
+        (512, "4/3", 8), (1024, "8/7", 5),
+    ])
+    def test_padded_block0_streaming_ramp(self, block, os, k1):
+        """A chunk starting at spectrum k1 with block0=k1 must reproduce the
+        one-shot spectra once its own filter history is full."""
+        from ska_pst_dsp.design import fir
+        from ska_pst_dsp.utils import geometry
+
+        os_f = Rational.from_str(os)
+        filt = np.asarray(fir.design_pfb_fir_filter(block, os_f, 4))
+        step = geometry.analysis_step(block, os_f)
+        phases = geometry.padded_filter_length(filt.size, block) // step + 1
+        x = _noise(2, 60 * block, seed=k1)
+        full = np.asarray(polyphase_analysis_padded(
+            x, filt, block, os_f, apply_delay=False
+        ))
+        part = np.asarray(polyphase_analysis_padded(
+            x[:, :, k1 * step:], filt, block, os_f, block0=k1,
+            apply_delay=False,
+        ))
+        n2 = part.shape[2]
+        _check(part[..., phases:], full[..., k1 + phases: k1 + n2], tol=3e-6)

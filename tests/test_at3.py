@@ -9,7 +9,7 @@ import os
 
 import pytest
 
-from ska_pst_dsp_tpu.cli import at3
+from ska_pst_dsp.cli import at3
 
 
 class TestAt3_565:

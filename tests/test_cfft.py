@@ -1,23 +1,11 @@
-"""The matmul FFT must match numpy's FFT at fp32 accuracy for every
-transform size the framework's geometries use."""
+"""The split-complex FFT wrappers must match numpy's FFT at fp32 accuracy
+for every transform size the framework's geometries use."""
 
 import jax
 import numpy as np
 import pytest
 
-from ska_pst_dsp_tpu.ops import cfft
-
-
-@pytest.fixture(autouse=True)
-def _matmul_mode():
-    """Exercise the TPU (matmul) lowering even though tests run on CPU —
-    restored afterwards so the mode doesn't leak into other modules (the
-    rest of the suite intentionally runs the CPU-native path; a leaked
-    matmul mode changes every later test's numeric floor)."""
-    prev = cfft.MODE
-    cfft.MODE = "matmul"
-    yield
-    cfft.MODE = prev
+from ska_pst_dsp.ops import cfft
 
 # sizes: analysis FFTs (256, 512, 192...), lowcbf (256), synthesis forward
 # (256, 512), big inverse FFTs: low 192*256=49152, mid 448*4096=1835008,
@@ -90,9 +78,9 @@ def test_fftshift():
     np.testing.assert_array_equal(got, np.fft.fftshift(x))
 
 
-def test_tone_purity_through_matmul_fft():
-    """A pure tone's FFT through the matmul path must keep spurious bins
-    below -120 dB — well under the -60 dB budget."""
+def test_tone_purity_through_native_fft():
+    """A pure tone's FFT through the complex64 wrapper must keep spurious
+    bins below -120 dB — well under the -60 dB budget."""
     n = 49152
     k0 = 1234
     t = np.arange(n)

@@ -7,8 +7,8 @@ import os
 import numpy as np
 import pytest
 
-from ska_pst_dsp_tpu.cli import phrap, test_vector
-from ska_pst_dsp_tpu.io import dada
+from ska_pst_dsp.cli import phrap, test_vector
+from ska_pst_dsp.io import dada
 
 
 class TestTestVector:
@@ -94,7 +94,7 @@ class TestPhrap:
 
     def test_fold_dada_file(self, tmp_path):
         # write a square wave then fold the file
-        from ska_pst_dsp_tpu.cli import sgcht
+        from ska_pst_dsp.cli import sgcht
 
         rc = sgcht.run([
             "--signal", "square_wave", "--blocks", "4",
@@ -115,7 +115,7 @@ class TestParamSearch:
     the 2-D fft_length x overlap grid with the reference's six measures."""
 
     def test_search_grid_and_measures(self):
-        from ska_pst_dsp_tpu.analysis.param_opt import (
+        from ska_pst_dsp.analysis.param_opt import (
             overlap_parameter_search,
         )
 

@@ -7,10 +7,10 @@ import os
 import numpy as np
 import pytest
 
-from ska_pst_dsp_tpu import data_gen
-from ska_pst_dsp_tpu.data_gen import util as dg_util
-from ska_pst_dsp_tpu.data_gen import dspsr_util
-from ska_pst_dsp_tpu.io import dada
+from ska_pst_dsp import data_gen
+from ska_pst_dsp.data_gen import util as dg_util
+from ska_pst_dsp.data_gen import dspsr_util
+from ska_pst_dsp.io import dada
 
 
 class TestGenerateTestVector:

@@ -9,12 +9,12 @@ import pytest
 import jax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from ska_pst_dsp_tpu.io import dada
-from ska_pst_dsp_tpu.parallel import distributed
-from ska_pst_dsp_tpu.parallel.sharded import make_mesh
-from ska_pst_dsp_tpu.ops import polyphase_analysis, polyphase_synthesis
-from ska_pst_dsp_tpu.utils.config import load_config
-from ska_pst_dsp_tpu.utils.rational import Rational
+from ska_pst_dsp.io import dada
+from ska_pst_dsp.parallel import distributed
+from ska_pst_dsp.parallel.sharded import make_mesh
+from ska_pst_dsp.ops import polyphase_analysis, polyphase_synthesis
+from ska_pst_dsp.utils.config import load_config
+from ska_pst_dsp.utils.rational import Rational
 
 
 @pytest.fixture(scope="module")

@@ -2,7 +2,7 @@
 
 The real tools are absent in this environment, so without these tests the
 runners' subprocess / dump-rename / log-parsing code paths would only ever
-execute up to ToolUnavailable (VERDICT r2 weakness 6). A fake ``dspsr`` (a
+execute up to ToolUnavailable. A fake ``dspsr`` (a
 shell script on a prepended PATH) reproduces the tool's observable
 behavior — stdout chatter captured to the log, an ``.ar`` product, and the
 ``pre_<Stage>.dump`` file dropped in the CWD that DspsrDumpRunner must
@@ -14,7 +14,7 @@ import stat
 import numpy as np
 import pytest
 
-from ska_pst_dsp_tpu.data_gen import dspsr_util
+from ska_pst_dsp.data_gen import dspsr_util
 
 
 def _make_tool(bin_dir, name, script):

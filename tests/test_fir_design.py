@@ -12,9 +12,9 @@ anchor the LowCBF model to the vendored firmware coefficients
 import numpy as np
 import pytest
 
-from ska_pst_dsp_tpu.design import fir
-from ska_pst_dsp_tpu.utils.config import CONFIG_DIR, load_config
-from ska_pst_dsp_tpu.utils.rational import Rational
+from ska_pst_dsp.design import fir
+from ska_pst_dsp.utils.config import CONFIG_DIR, load_config
+from ska_pst_dsp.utils.rational import Rational
 
 import os
 

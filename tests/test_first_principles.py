@@ -1,9 +1,9 @@
 """Transliteration-independent anchors: the JAX kernels against closed-form
 mathematics, not the NumPy oracle.
 
-The oracle (ska_pst_dsp_tpu/oracle.py) and the kernels share one author and
+The oracle (ska_pst_dsp/oracle.py) and the kernels share one author and
 one reading of the reference Matlab, so oracle-differential tests cannot
-catch a shared misreading (VERDICT r2 weakness 4; the reference's own
+catch a shared misreading (the reference's own
 strongest gate is two unrelated codebases agreeing,
 test_matlab_dspsr_pfb_inversion.py:35). These tests derive the expected
 outputs from first principles only:
@@ -25,10 +25,10 @@ outputs from first principles only:
 import numpy as np
 import pytest
 
-from ska_pst_dsp_tpu.design import fir
-from ska_pst_dsp_tpu.ops import polyphase_analysis
-from ska_pst_dsp_tpu.utils import geometry
-from ska_pst_dsp_tpu.utils.rational import Rational
+from ska_pst_dsp.design import fir
+from ska_pst_dsp.ops import polyphase_analysis
+from ska_pst_dsp.utils import geometry
+from ska_pst_dsp.utils.rational import Rational
 
 N_CHAN = 256
 OS = Rational(4, 3)

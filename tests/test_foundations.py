@@ -4,14 +4,14 @@ windows, DADA I/O, config."""
 import numpy as np
 import pytest
 
-from ska_pst_dsp_tpu.utils.rational import Rational
-from ska_pst_dsp_tpu.utils import geometry, windows
-from ska_pst_dsp_tpu.io import dada
-from ska_pst_dsp_tpu.io.lowcbf import (
+from ska_pst_dsp.utils.rational import Rational
+from ska_pst_dsp.utils import geometry, windows
+from ska_pst_dsp.io import dada
+from ska_pst_dsp.io.lowcbf import (
     reshape_low_cbf_stream,
     flatten_low_cbf_stream,
 )
-from ska_pst_dsp_tpu.utils.config import load_config, available_configs
+from ska_pst_dsp.utils.config import load_config, available_configs
 
 
 class TestRational:
@@ -130,7 +130,7 @@ class TestDADA:
         np.testing.assert_array_equal(part, data[:, :, 5:15])
 
     def test_fir_in_header_roundtrip(self):
-        from ska_pst_dsp_tpu.utils.rational import Rational
+        from ska_pst_dsp.utils.rational import Rational
 
         coeff = np.array([0.1, -0.2, 0.3])
         hdr = dada.add_fir_filter_to_header({}, coeff, Rational(4, 3))
@@ -192,8 +192,8 @@ class TestConfig:
 
 class TestTestbench:
     def test_hex_roundtrip(self, tmp_path):
-        from ska_pst_dsp_tpu.io.testbench import load_fb_tb_data, fb_tb_to_dada
-        from ska_pst_dsp_tpu.io import dada
+        from ska_pst_dsp.io.testbench import load_fb_tb_data, fb_tb_to_dada
+        from ska_pst_dsp.io import dada
         import numpy as np
 
         rng = np.random.default_rng(0)
@@ -222,7 +222,7 @@ class TestTestbench:
 
 class TestRecenter:
     def test_recenter_extracts_peak_window(self):
-        from ska_pst_dsp_tpu.design.fir import recenter_coefficients
+        from ska_pst_dsp.design.fir import recenter_coefficients
         import numpy as np
 
         h = np.zeros(100)

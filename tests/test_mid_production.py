@@ -19,11 +19,11 @@ input→output shift is output_overlap - 1 = 458751 samples.
 import numpy as np
 import pytest
 
-from ska_pst_dsp_tpu import oracle
-from ska_pst_dsp_tpu.ops import polyphase_analysis_padded, polyphase_synthesis
-from ska_pst_dsp_tpu.utils import geometry, windows
-from ska_pst_dsp_tpu.utils.config import load_config
-from ska_pst_dsp_tpu.utils.rational import Rational
+from ska_pst_dsp import oracle
+from ska_pst_dsp.ops import polyphase_analysis_padded, polyphase_synthesis
+from ska_pst_dsp.utils import geometry, windows
+from ska_pst_dsp.utils.config import load_config
+from ska_pst_dsp.utils.rational import Rational
 
 N_CHAN, L, OVERLAP = 4096, 512, 128
 OS = Rational(8, 7)

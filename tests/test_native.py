@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from ska_pst_dsp_tpu.io import dada, native
-from ska_pst_dsp_tpu.io.lowcbf import flatten_low_cbf_stream
+from ska_pst_dsp.io import dada, native
+from ska_pst_dsp.io.lowcbf import flatten_low_cbf_stream
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native engine not built"

@@ -6,9 +6,9 @@ import os
 import numpy as np
 import pytest
 
-from ska_pst_dsp_tpu.analysis import process_test_vectors as ptv
-from ska_pst_dsp_tpu.analysis import quicklook
-from ska_pst_dsp_tpu.utils.config import load_config
+from ska_pst_dsp.analysis import process_test_vectors as ptv
+from ska_pst_dsp.analysis import quicklook
+from ska_pst_dsp.utils.config import load_config
 
 
 @pytest.fixture(scope="module")
@@ -44,7 +44,7 @@ def test_three_way_report(tree):
                 < max(r["time_mean_diff"]["inverted_vs_input"], 1e-9)
             )
     # the products report landed
-    from ska_pst_dsp_tpu.data_gen.config import products_dir
+    from ska_pst_dsp.data_gen.config import products_dir
 
     assert os.path.exists(
         os.path.join(products_dir, "report.process_test_vectors.json")

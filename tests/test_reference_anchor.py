@@ -17,13 +17,13 @@ tests/test_fir_design.py.
 import numpy as np
 import pytest
 
-from ska_pst_dsp_tpu import oracle
-from ska_pst_dsp_tpu.data_gen.generate_test_vector import (
+from ska_pst_dsp import oracle
+from ska_pst_dsp.data_gen.generate_test_vector import (
     complex_sinusoid, time_domain_impulse,
 )
-from ska_pst_dsp_tpu.ops import polyphase_analysis, polyphase_synthesis
-from ska_pst_dsp_tpu.utils import windows
-from ska_pst_dsp_tpu.utils.config import load_config
+from ska_pst_dsp.ops import polyphase_analysis, polyphase_synthesis
+from ska_pst_dsp.utils import windows
+from ska_pst_dsp.utils.config import load_config
 
 N_BINS = 442368        # reference report.json: "sum": 442368
 FREQ_BIN = 377475      # reference report.json: "freq": 377475

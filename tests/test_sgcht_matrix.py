@@ -5,7 +5,7 @@ critical / combine; test_sgcht.m:1-57) through the in-stream testers.
 Single-stage cases run at the production low config; the cascade cases run
 at the ``test32`` geometry so the whole matrix stays CI-fast (the low-config
 cascade needs ~18M samples per case — that full sweep is the
-``python -m ska_pst_dsp_tpu.cli.test_sgcht -c low`` CLI, whose committed
+``python -m ska_pst_dsp.cli.test_sgcht -c low`` CLI, whose committed
 product is products/report.test_sgcht.low.json).
 
 sgcht returns 0 = pass, -1 = tester failed, -2 = tester starved (saw no
@@ -14,8 +14,8 @@ samples — a vacuous run we refuse to count as a pass).
 
 import pytest
 
-from ska_pst_dsp_tpu.cli import sgcht
-from ska_pst_dsp_tpu.utils.config import load_config
+from ska_pst_dsp.cli import sgcht
+from ska_pst_dsp.utils.config import load_config
 
 
 @pytest.fixture(scope="module", autouse=True)

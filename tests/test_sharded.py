@@ -6,20 +6,20 @@ import jax
 import numpy as np
 import pytest
 
-from ska_pst_dsp_tpu.ops import (
+from ska_pst_dsp.ops import (
     polyphase_analysis,
     polyphase_analysis_padded,
     polyphase_synthesis,
 )
-from ska_pst_dsp_tpu.parallel.sharded import (
+from ska_pst_dsp.parallel.sharded import (
     make_mesh,
     sharded_polyphase_analysis,
     sharded_polyphase_analysis_padded,
     sharded_polyphase_synthesis,
     sharded_round_trip,
 )
-from ska_pst_dsp_tpu.utils import geometry
-from ska_pst_dsp_tpu.utils.rational import Rational
+from ska_pst_dsp.utils import geometry
+from ska_pst_dsp.utils.rational import Rational
 
 
 def _filt(taps, block):
@@ -53,7 +53,7 @@ class TestShardedAnalysis:
         n_dat = N_DEV * step * os_f.nu * 40  # nu-aligned shards
         x = _noise((2, n_dat), seed=1)
         one = np.asarray(polyphase_analysis(x, filt, block, os_f))
-        from ska_pst_dsp_tpu.ops import cfft
+        from ska_pst_dsp.ops import cfft
         shd = cfft.combine(*sharded_polyphase_analysis(x, filt, block, os_f, mesh))
         n = one.shape[2]
         scale = np.abs(one).max()
@@ -67,7 +67,7 @@ class TestShardedAnalysis:
         n_dat = N_DEV * step * os_f.nu * 10
         x = _noise((1, n_dat), seed=2)
         one = np.asarray(polyphase_analysis_padded(x, filt, block, os_f))
-        from ska_pst_dsp_tpu.ops import cfft
+        from ska_pst_dsp.ops import cfft
         shd = cfft.combine(*sharded_polyphase_analysis_padded(x, filt, block, os_f, mesh))
         scale = np.abs(one).max()
         np.testing.assert_allclose(shd, one, atol=1e-6 * scale, rtol=0)
@@ -87,7 +87,7 @@ class TestShardedSynthesis:
                 temporal_taper="tukey",
             )
         )
-        from ska_pst_dsp_tpu.ops import cfft
+        from ska_pst_dsp.ops import cfft
         shd = cfft.combine(*sharded_polyphase_synthesis(
             x, L, os_f, mesh, input_overlap=ov, deripple_coeff=filt,
             temporal_taper="tukey",
@@ -108,10 +108,10 @@ class TestShardedRoundTrip:
         t = np.arange(n_dat)
         x = np.exp(2j * np.pi * (5.0 / n_chan) * t).astype(np.complex64)[None, :]
 
-        from ska_pst_dsp_tpu.ops import cfft
+        from ska_pst_dsp.ops import cfft
         out = cfft.combine(*sharded_round_trip(x, filt, n_chan, os_f, L, ov, mesh))[0, 0]
         # the hard invariant: sharded pipeline == one-shot pipeline
-        from ska_pst_dsp_tpu.ops import polyphase_analysis, polyphase_synthesis
+        from ska_pst_dsp.ops import polyphase_analysis, polyphase_synthesis
 
         chan = polyphase_analysis(x, filt, n_chan, os_f)
         one = np.asarray(
@@ -137,10 +137,10 @@ class TestCornerTurn2D:
     """Channel x time mesh with all-to-all corner turn vs one-shot."""
 
     def test_2d_synthesis_matches_oneshot(self):
-        from ska_pst_dsp_tpu.parallel.corner_turn import (
+        from ska_pst_dsp.parallel.corner_turn import (
             make_mesh_2d, sharded_polyphase_synthesis_2d,
         )
-        from ska_pst_dsp_tpu.ops import cfft
+        from ska_pst_dsp.ops import cfft
 
         os_f = Rational(4, 3)
         n_chan, L, ov = 16, 64, 8
@@ -165,10 +165,10 @@ class TestCornerTurn2D:
         np.testing.assert_allclose(shd, one, atol=2e-6 * scale, rtol=0)
 
     def test_2d_4x2_mesh(self):
-        from ska_pst_dsp_tpu.parallel.corner_turn import (
+        from ska_pst_dsp.parallel.corner_turn import (
             make_mesh_2d, sharded_polyphase_synthesis_2d,
         )
-        from ska_pst_dsp_tpu.ops import cfft
+        from ska_pst_dsp.ops import cfft
 
         os_f = Rational(8, 7)
         n_chan, L, ov = 8, 112, 8
@@ -196,7 +196,7 @@ class TestProductionLowSharded:
 
     @pytest.fixture(scope="class")
     def low(self):
-        from ska_pst_dsp_tpu.design import fir
+        from ska_pst_dsp.design import fir
 
         os_f = Rational(4, 3)
         filt = fir.design_pfb_fir_filter(256, os_f, 12)
@@ -212,7 +212,7 @@ class TestProductionLowSharded:
         ).astype(np.complex64)
 
     def test_1d_roundtrip_matches_oneshot(self, low, noise):
-        from ska_pst_dsp_tpu.parallel.sharded import (
+        from ska_pst_dsp.parallel.sharded import (
             make_mesh, sharded_round_trip,
         )
 
@@ -235,7 +235,7 @@ class TestProductionLowSharded:
         )
 
     def test_2d_analysis_matches_oneshot(self, low, noise):
-        from ska_pst_dsp_tpu.parallel.corner_turn import (
+        from ska_pst_dsp.parallel.corner_turn import (
             make_mesh_2d, sharded_polyphase_analysis_2d,
         )
 
@@ -253,7 +253,7 @@ class TestProductionLowSharded:
     def test_2d_roundtrip_matches_oneshot(self, low, noise):
         """Channel-sharded analysis -> all-to-all corner turn -> block-
         sharded big IFFT, against the one-shot chain."""
-        from ska_pst_dsp_tpu.parallel.corner_turn import (
+        from ska_pst_dsp.parallel.corner_turn import (
             make_mesh_2d, sharded_round_trip_2d,
         )
 
@@ -302,7 +302,7 @@ class TestMidGeometry2D:
         return _noise((1, n_dat), seed=7)
 
     def test_padded_2d_analysis_matches_oneshot(self, mid, noise):
-        from ska_pst_dsp_tpu.parallel.corner_turn import (
+        from ska_pst_dsp.parallel.corner_turn import (
             make_mesh_2d, sharded_polyphase_analysis_padded_2d,
         )
 
@@ -320,7 +320,7 @@ class TestMidGeometry2D:
         np.testing.assert_allclose(got, ref, atol=3e-6 * scale, rtol=0)
 
     def test_padded_2d_roundtrip_matches_oneshot(self, mid, noise):
-        from ska_pst_dsp_tpu.parallel.corner_turn import (
+        from ska_pst_dsp.parallel.corner_turn import (
             make_mesh_2d, sharded_round_trip_2d_padded,
         )
 
@@ -347,7 +347,7 @@ class TestMidGeometry2D:
         )
 
     def test_padded_1d_roundtrip_matches_oneshot(self, mid, noise):
-        from ska_pst_dsp_tpu.parallel.sharded import sharded_round_trip_padded
+        from ska_pst_dsp.parallel.sharded import sharded_round_trip_padded
 
         mesh = make_mesh(8)
         rr, ri = sharded_round_trip_padded(

@@ -8,17 +8,17 @@ import dataclasses
 import numpy as np
 import pytest
 
-from ska_pst_dsp_tpu.models import (
+from ska_pst_dsp.models import (
     FilterBank, InverseFilterBank, StatefulPipeline,
     PureTone, Impulse, SquareWave, FrequencyComb, FrequencyWedge, Stream,
     TestPureTone, TestImpulse, PhaseAverage,
 )
-from ska_pst_dsp_tpu.ops import (
+from ska_pst_dsp.ops import (
     polyphase_analysis, polyphase_analysis_padded, polyphase_analysis_lowcbf,
     polyphase_synthesis,
 )
-from ska_pst_dsp_tpu.utils.rational import Rational
-from ska_pst_dsp_tpu.utils import geometry
+from ska_pst_dsp.utils.rational import Rational
+from ska_pst_dsp.utils import geometry
 
 
 @dataclasses.dataclass

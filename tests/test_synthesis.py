@@ -5,12 +5,12 @@ scientific requirement of the framework (-60 dB spurious power)."""
 import numpy as np
 import pytest
 
-from ska_pst_dsp_tpu import oracle
-from ska_pst_dsp_tpu.ops import polyphase_analysis, polyphase_synthesis
-from ska_pst_dsp_tpu.ops.synthesis import combine_channel_permutation
-from ska_pst_dsp_tpu.utils import windows, geometry
-from ska_pst_dsp_tpu.utils.rational import Rational
-from ska_pst_dsp_tpu.design import fir
+from ska_pst_dsp import oracle
+from ska_pst_dsp.ops import polyphase_analysis, polyphase_synthesis
+from ska_pst_dsp.ops.synthesis import combine_channel_permutation
+from ska_pst_dsp.utils import windows, geometry
+from ska_pst_dsp.utils.rational import Rational
+from ska_pst_dsp.design import fir
 
 
 def _noise(n_pol, n_chan, n_dat, seed=0, dtype=np.complex64):
@@ -220,7 +220,7 @@ class TestSpectralFilter:
     def test_chirp_during_equals_after(self):
         """Applying a dedispersion chirp inside the inversion must equal
         dedispersing the inverted stream (where smearing fits the overlap)."""
-        from ska_pst_dsp_tpu.ops import dedispersion
+        from ska_pst_dsp.ops import dedispersion
 
         os_f = Rational(4, 3)
         n_chan, L, ov = 64, 128, 24
@@ -260,8 +260,8 @@ class TestInversionSmokeMatrix:
     def test_low_matrix_subset(self):
         """Native analog of verify_dspsr_pfb_inversion's generated cases
         (reference verify_dspsr_pfb_inversion.py:52-110), small subset."""
-        from ska_pst_dsp_tpu.data_gen import config as cfg_mod
-        from ska_pst_dsp_tpu.verify.verify_dspsr_pfb_inversion import (
+        from ska_pst_dsp.data_gen import config as cfg_mod
+        from ska_pst_dsp.verify.verify_dspsr_pfb_inversion import (
             CASES, run_matrix,
         )
 
@@ -271,3 +271,65 @@ class TestInversionSmokeMatrix:
         report = run_matrix(config, cases=subset)
         assert len(report) == 4
         assert all(r["ok"] for r in report.values()), report
+
+
+class TestLowGeometryVsOracle:
+    """The plain inversion against the fp64 oracle at the SKA-Low inversion
+    geometry (256 ch, L=256, overlap 48, OS 4/3: a 49152-point backward
+    FFT), with the options users combine with it."""
+
+    N_CHAN, L, OV = 256, 256, 48
+    OS = Rational(4, 3)
+
+    def _oracle(self, x, filt, **kw):
+        t = windows.tukey_window(self.L, self.OV).astype(np.float64)
+        return oracle.polyphase_synthesis(
+            x.astype(np.complex128), self.L, self.OS, input_overlap=self.OV,
+            deripple_coeff=filt, temporal_taper=t, **kw,
+        )
+
+    def _ours(self, x, filt, **kw):
+        return np.asarray(polyphase_synthesis(
+            x, self.L, self.OS, input_overlap=self.OV, deripple_coeff=filt,
+            temporal_taper="tukey", **kw,
+        ))
+
+    @pytest.mark.parametrize("case", [
+        "deripple", "odd_pol", "no_deripple", "spectral_taper",
+        "spectral_filter", "critical_no_nyquist", "combine16", "tuple_api",
+    ])
+    def test_matches_oracle(self, case):
+        filt = fir.design_pfb_fir_filter(self.N_CHAN, self.OS, 12)
+        n_pol = 1 if case in ("odd_pol", "tuple_api") else 2
+        x = _noise(n_pol, self.N_CHAN, 1200, seed=len(case))
+        kw_o, kw_j = {}, {}
+        if case == "no_deripple":
+            filt = None
+        elif case == "spectral_taper":
+            fnw = self.OS.normalize(self.L)
+            kw_o["spectral_taper"] = windows.tukey_window(
+                self.N_CHAN * fnw, self.OV).astype(np.float64)
+            kw_j["spectral_taper"] = "tukey"
+        elif case == "spectral_filter":
+            fnw = self.OS.normalize(self.L)
+            rng = np.random.default_rng(3)
+            sf = np.exp(2j * np.pi * rng.random(self.N_CHAN * fnw))
+            kw_o["spectral_filter"] = sf
+            kw_j["spectral_filter"] = sf.astype(np.complex64)
+        elif case == "critical_no_nyquist":
+            kw_o["spans_nyquist"] = kw_j["spans_nyquist"] = False
+        elif case == "combine16":
+            kw_o["combine"] = kw_j["combine"] = 16
+        ref = self._oracle(x, filt, **kw_o)
+        if case == "tuple_api":
+            rr, ri = polyphase_synthesis(
+                (np.ascontiguousarray(x.real), np.ascontiguousarray(x.imag)),
+                self.L, self.OS, input_overlap=self.OV, deripple_coeff=filt,
+                temporal_taper="tukey",
+            )
+            out = np.asarray(rr) + 1j * np.asarray(ri)
+        else:
+            out = self._ours(x, filt, **kw_j)
+        assert out.shape == ref.shape
+        scale = np.abs(ref).max()
+        np.testing.assert_allclose(out, ref, atol=5e-6 * scale, rtol=0)

@@ -14,14 +14,14 @@ through the same classes in tests/test_sgcht_matrix.py and the CLI sweep.
 import numpy as np
 import pytest
 
-from ska_pst_dsp_tpu.models.two_stage import (
+from ska_pst_dsp.models.two_stage import (
     TwoStageFilterBank,
     TwoStageInverseFilterBank,
 )
-from ska_pst_dsp_tpu.models.streaming import FilterBank
-from ska_pst_dsp_tpu.ops import polyphase_analysis
-from ska_pst_dsp_tpu.utils.config import load_config
-from ska_pst_dsp_tpu.utils.rational import Rational
+from ska_pst_dsp.models.streaming import FilterBank
+from ska_pst_dsp.ops import polyphase_analysis
+from ska_pst_dsp.utils.config import load_config
+from ska_pst_dsp.utils.rational import Rational
 
 
 @pytest.fixture(scope="module")
@@ -147,7 +147,7 @@ class TestTwoStageInverse:
         """Two-stage analysis then the inverse cascade must reproduce the
         stage-1 (coarse channelized) stream after the stage-2 round-trip
         alignment shift."""
-        from ska_pst_dsp_tpu.utils import geometry
+        from ska_pst_dsp.utils import geometry
 
         x = _tone(700000)
         fb = TwoStageFilterBank(cfg)

@@ -15,11 +15,11 @@ Two chains, both on the 8-virtual-device CPU mesh:
 import numpy as np
 import pytest
 
-from ska_pst_dsp_tpu.models.two_stage import (
+from ska_pst_dsp.models.two_stage import (
     TwoStageFilterBank,
     TwoStageInverseFilterBank,
 )
-from ska_pst_dsp_tpu.utils.config import load_config
+from ska_pst_dsp.utils.config import load_config
 
 
 def _noise(n, seed):
@@ -33,8 +33,8 @@ def _sharded(cfg1, cfg2, x, combine, invert):
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from ska_pst_dsp_tpu.parallel.sharded import make_mesh
-    from ska_pst_dsp_tpu.parallel.two_stage_sharded import (
+    from ska_pst_dsp.parallel.sharded import make_mesh
+    from ska_pst_dsp.parallel.two_stage_sharded import (
         sharded_two_stage_round_trip,
     )
 

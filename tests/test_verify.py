@@ -7,10 +7,10 @@ import os
 import numpy as np
 import pytest
 
-from ska_pst_dsp_tpu.verify import comparator, util as vutil
-from ska_pst_dsp_tpu.verify.purity import TestPurity
-from ska_pst_dsp_tpu.ops import dedispersion
-from ska_pst_dsp_tpu.utils.rational import Rational
+from ska_pst_dsp.verify import comparator, util as vutil
+from ska_pst_dsp.verify.purity import TestPurity
+from ska_pst_dsp.ops import dedispersion
+from ska_pst_dsp.utils.rational import Rational
 
 
 class TestComparator:
@@ -78,7 +78,7 @@ class TestPuritySuite:
 
     @pytest.fixture(scope="class")
     def purity(self, tmp_path_factory):
-        import ska_pst_dsp_tpu.data_gen.config as dgc
+        import ska_pst_dsp.data_gen.config as dgc
         import dataclasses
 
         out = str(tmp_path_factory.mktemp("purity"))
@@ -100,11 +100,11 @@ class TestPuritySuite:
             make_plots=False,
         )
         # point the channelizer/synthesizer at a matching small filter
-        from ska_pst_dsp_tpu.design import fir as fir_design
-        import ska_pst_dsp_tpu.data_gen.channelize as dgch
+        from ska_pst_dsp.design import fir as fir_design
+        import ska_pst_dsp.data_gen.channelize as dgch
 
         filt = fir_design.design_pfb_fir_filter(64, Rational(4, 3), 12)
-        import ska_pst_dsp_tpu.data_gen as dg
+        import ska_pst_dsp.data_gen as dg
 
         p.channelizer = dg.channelize(
             backend="jax", channels=64, os_factor_str="4/3",
@@ -169,9 +169,9 @@ class TestDedispersion:
         """The reference's dedispersion invariance check
         (test_dedispersion.py): dedisperse(invert(channelize(x))) must equal
         dedisperse(x) to the inversion's error floor."""
-        from ska_pst_dsp_tpu.ops import polyphase_analysis, polyphase_synthesis
-        from ska_pst_dsp_tpu.utils import geometry
-        from ska_pst_dsp_tpu.design import fir as fir_design
+        from ska_pst_dsp.ops import polyphase_analysis, polyphase_synthesis
+        from ska_pst_dsp.utils import geometry
+        from ska_pst_dsp.design import fir as fir_design
 
         os_f = Rational(4, 3)
         n_chan, L, ov = 64, 128, 24
@@ -206,7 +206,7 @@ class TestPurityProductionAdversarial:
 
     @pytest.fixture(scope="class")
     def purity(self, tmp_path_factory):
-        from ska_pst_dsp_tpu.utils.config import load_config
+        from ska_pst_dsp.utils.config import load_config
 
         out = str(tmp_path_factory.mktemp("purity_low"))
         cfg = load_config("low")
@@ -226,7 +226,7 @@ class TestPurityProductionAdversarial:
             output_dir=out,
             make_plots=False,
         )
-        import ska_pst_dsp_tpu.data_gen as dg
+        import ska_pst_dsp.data_gen as dg
 
         p.channelizer = dg.channelize(
             backend="jax", channels=cfg.channels,
